@@ -1,10 +1,10 @@
-"""hso_tpu — a TPU-native hybrid sparse monocular visual-odometry framework.
+"""hso_tpu — a JAX hybrid sparse monocular visual-odometry framework.
 
 A from-scratch re-design of the capabilities of HSO ("Hybrid Sparse Monocular
-Visual Odometry with Online Photometric Calibration", IJRR 2022; reference C++
-at /root/reference) for TPU hardware:
+Visual Odometry with Online Photometric Calibration", IJRR 2022; reference in
+C++) for one accelerator, an NVIDIA GPU:
 
-* all O(N·patch) math is batched, statically-shaped JAX (XLA / Pallas) code,
+* all O(N·patch) math is batched, statically-shaped JAX (XLA) code,
 * the branchy per-frame state machine is thin host Python,
 * the sliding-window bundle adjustment is a purpose-built Schur-complement
   Levenberg-Marquardt solver that shards keyframe/point blocks over a

@@ -1,10 +1,10 @@
 """Multi-device sliding-window BA: point-block-sharded Schur reduction.
 
 The BASELINE.json north-star config: keyframe and map-point blocks
-partitioned across a TPU mesh, distributed BA via Schur-complement reduction
-with ICI ``psum`` of the camera-camera Hessian blocks.  The reference has no
-analogue (single process, g2o, shared memory — SURVEY.md §2.3): this is
-where the TPU build's data-parallel axis lives.
+partitioned across a device mesh, distributed BA via Schur-complement
+reduction with a ``psum`` of the camera-camera Hessian blocks.  The
+reference has no analogue (single process, g2o, shared memory — SURVEY.md
+§2.3).
 
 Scheme (v3 — dense (P, K) observation grid, point axis sharded):
   * the observation grid of ``hso_tpu.ba.local_ba`` is (P, K) — sharding the
@@ -18,8 +18,8 @@ Scheme (v3 — dense (P, K) observation grid, point axis sharded):
     coupling ``W`` stay LOCAL; per-device memory scales as P/n,
   * the Schur reduction needs only the (6K, 6K) reduced camera system
     globally: each device computes ``Wᵀ·H_pp⁻¹·W`` and ``Wᵀ·H_pp⁻¹·g_p``
-    over its point block and the small results are ``psum``-reduced over
-    ICI together with its partial ``H_cc``/``g_c``/chi²,
+    over its point block and the small results are ``psum``-reduced
+    together with its partial ``H_cc``/``g_c``/chi²,
   * the damped solve of the reduced camera system runs replicated (6K ≤ 96
     unknowns); landmark back-substitution is local per point block,
   * the whole LM loop lives inside one ``shard_map`` call — one dispatch per
@@ -46,6 +46,8 @@ from hso_tpu.ba.local_ba import (
     residual_norms,
     residuals_and_jacobians,
 )
+
+_HI = jax.lax.Precision.HIGHEST
 
 #: observation-dict keys indexed by point (sharded); everything in OBS_KEYS
 #: has a leading P axis in the dense layout.
@@ -80,9 +82,9 @@ def make_distributed_ba(mesh: Mesh, n_kf: int, n_pts_local: int,
             Hpp_inv = 1.0 / H_pp_d
             W = sys["W"]                                     # (P_l, 6K) local
             H_red = sys["H_cc"] - jax.lax.psum(
-                (W * Hpp_inv[:, None]).T @ W, axis)
+                jnp.dot((W * Hpp_inv[:, None]).T, W, precision=_HI), axis)
             g_red = sys["g_c"] - jax.lax.psum(
-                W.T @ (Hpp_inv * sys["g_p"]), axis)
+                jnp.dot(W.T, Hpp_inv * sys["g_p"], precision=_HI), axis)
 
             diag = jnp.diag(H_red)
             H_red = H_red + jnp.diag(diag * lam)
@@ -92,7 +94,7 @@ def make_distributed_ba(mesh: Mesh, n_kf: int, n_pts_local: int,
             g_red = g_red * m
             delta_c = jnp.linalg.solve(H_red, g_red)
             delta_c = jnp.where(jnp.isfinite(delta_c), delta_c, 0.0) * m
-            delta_p = Hpp_inv * (sys["g_p"] - W @ delta_c)   # local
+            delta_p = Hpp_inv * (sys["g_p"] - jnp.dot(W, delta_c, precision=_HI))   # local
             return delta_c, delta_p
 
         def body(i, carry):

@@ -14,16 +14,15 @@ Re-designs ``ba::LocalBundleAdjustment`` + the custom g2o types
     (×1.4826; fallbacks 1.0/f and 0.5/f when a class is empty),
   * Levenberg-Marquardt with the landmark block eliminated analytically —
     H_pp is *scalar* per point, so the Schur reduction is a single
-    (6K, P)·(P, 6K) MXU matmul, not a sparse factorization,
+    (6K, P)·(P, 6K) matmul, not a sparse factorization,
   * after the solve, observations are re-tested and stripped at 2.0 px
     (corners) / 1.2 px (edgelets).
 
-TPU-native observation layout: a **dense (P, K) grid** — each windowed point
-is observed at most once per windowed keyframe, so observations live at their
+Observation layout: a **dense (P, K) grid** — each windowed point is
+observed at most once per windowed keyframe, so observations live at their
 (point-slot, keyframe-slot) cell with a validity mask.  Every Hessian
 assembly reduction is then a dense ``einsum`` over the grid — zero
-scatter/``segment_sum`` ops (TPU scatters serialize; the v1 E-list layout
-spent ~40 ms/solve in them).  Hosts are a per-point column (``host`` (P,)),
+scatter/``segment_sum`` ops.  Hosts are a per-point column (``host`` (P,)),
 relative poses come from a (K, K) pair table, and the host-side one-hot
 ``M_h`` (P, K) routes host-block contributions with matmuls.
 
@@ -56,6 +55,7 @@ from hso_tpu.math import se3
 from hso_tpu.math.robust import MAD_NORMALIZER, masked_median_bisect
 
 OBS_KEYS = ("meas", "grad", "is_edgelet", "level", "valid", "f_host", "host")
+_HI = jax.lax.Precision.HIGHEST
 
 
 def host_onehot(host, n_kf: int):
@@ -75,9 +75,8 @@ def residuals_and_jacobians(T_kf, idist, obs):
     (Edgelet rows are pre-projected onto the normal.)
 
     All small contractions are written in explicit broadcast-multiply form:
-    einsums over (3,)/(6,) axes lower to per-cell micro ``dot_general``s on
-    TPU (measured 3 ms/linearization at P·K = 32k cells); the elementwise
-    form fuses into plain VPU code (~10×).  The unit-plane projection
+    einsums over (3,)/(6,) axes would lower to per-cell micro
+    ``dot_general``s, while the elementwise form fuses.  The unit-plane projection
     Jacobian A = (1/z)·[[1,0,-u],[0,1,-v]] is folded in algebraically:
     -A·M has rows -(M₀ - u·M₂)/z and -(M₁ - v·M₂)/z.
     """
@@ -86,12 +85,12 @@ def residuals_and_jacobians(T_kf, idist, obs):
     rho_safe = jnp.where(jnp.abs(rho) < 1e-10, 1e-10, rho)
 
     # (K,K,3,4) pair table T_th = T_t · T_h⁻¹, then pick rows by host
-    # (one (P,K)·(K·12) matmul — MXU-shaped, unlike per-cell gathers)
+    # (one (P,K)·(K·12) matmul instead of per-cell gathers)
     T_inv = se3.inv(T_kf)
     T_pairs = se3.mul(T_kf[None, :], jnp.broadcast_to(
         T_inv[:, None], (T_kf.shape[0],) * 2 + (3, 4)))   # [h, t]
     Mh = host_onehot(obs["host"], T_kf.shape[0])
-    T_th = jnp.einsum("ph,htij->ptij", Mh, T_pairs)       # (P,K,3,4)
+    T_th = jnp.einsum("ph,htij->ptij", Mh, T_pairs, precision=_HI)      # (P,K,3,4)
 
     q = fH / rho_safe[:, None]                            # (P,3) host point
     R_th = T_th[..., :3, :3]
@@ -228,15 +227,16 @@ def build_reduced_system(T_kf, idist, obs, deltas, n_kf: int, n_pts: int):
     # ---- camera-camera blocks: (t,t) diagonal, (h,h) diagonal via Mh,
     # (t,h)/(h,t) cross via Mh.  Per-cell 6×6 outer products are formed as
     # one (P,K,6,6) broadcast (r unrolled), then grouped by host with a
-    # (K, P)·(P, ·) one-hot matmul — MXU-shaped ----
+    # (K, P)·(P, ·) one-hot matmul ----
     def outer66(Ja, Jb):
         return (Ja[..., 0, :, None] * Jb[..., 0, None, :]
                 + Ja[..., 1, :, None] * Jb[..., 1, None, :]) * iw[..., None, None]
 
     Htt = jnp.sum(outer66(J_t, J_t), axis=0)                  # (K,6,6)
     Hhh_p = jnp.sum(outer66(J_h, J_h), axis=1)                # (P,6,6)
-    Hhh = jnp.einsum("ph,pij->hij", Mh, Hhh_p)                # (K,6,6)
-    Hth = jnp.einsum("ph,pkij->khij", Mh, outer66(J_t, J_h))  # (K,K,6,6) [t,h]
+    Hhh = jnp.einsum("ph,pij->hij", Mh, Hhh_p, precision=_HI)              # (K,6,6)
+    Hth = jnp.einsum("ph,pkij->khij", Mh, outer66(J_t, J_h),
+                     precision=_HI)  # (K,K,6,6) [t,h]
 
     eyeK = jnp.eye(K)
     blocks = (
@@ -249,7 +249,7 @@ def build_reduced_system(T_kf, idist, obs, deltas, n_kf: int, n_pts: int):
 
     g_t = -jnp.sum(J_t * wr[..., None], axis=(0, 2))          # (K,6)
     g_h_p = -jnp.sum(J_h * wr[..., None], axis=(1, 2))        # (P,6)
-    g_c = (g_t + jnp.einsum("ph,pi->hi", Mh, g_h_p)).reshape(6 * K)
+    g_c = (g_t + jnp.einsum("ph,pi->hi", Mh, g_h_p, precision=_HI)).reshape(6 * K)
 
     return {"H_cc": H_cc, "g_c": g_c, "H_pp": H_pp, "g_p": g_p, "W": W,
             "chi2": chi2, "rn": rn}
@@ -262,8 +262,8 @@ def _schur_solve(sys, free_kf_mask, lam, n_kf: int):
     H_pp_d = sys["H_pp"] * (1.0 + lam) + 1e-12
     Hpp_inv = 1.0 / H_pp_d
     W = sys["W"]
-    H_red = sys["H_cc"] - (W * Hpp_inv[:, None]).T @ W
-    g_red = sys["g_c"] - W.T @ (Hpp_inv * sys["g_p"])
+    H_red = sys["H_cc"] - jnp.dot((W * Hpp_inv[:, None]).T, W, precision=_HI)
+    g_red = sys["g_c"] - jnp.dot(W.T, Hpp_inv * sys["g_p"], precision=_HI)
 
     # damping + gauge fixing: zero rows/cols of fixed cameras, unit diagonal
     diag = jnp.diag(H_red)
@@ -275,7 +275,7 @@ def _schur_solve(sys, free_kf_mask, lam, n_kf: int):
 
     delta_c = jnp.linalg.solve(H_red, g_red)
     delta_c = jnp.where(jnp.isfinite(delta_c), delta_c, 0.0) * m
-    delta_p = Hpp_inv * (sys["g_p"] - W @ delta_c)
+    delta_p = Hpp_inv * (sys["g_p"] - jnp.dot(W, delta_c, precision=_HI))
     return delta_c, delta_p
 
 
@@ -330,9 +330,10 @@ def local_bundle_adjustment(
         nu = jnp.where(accept, 2.0, nu * 2.0)
         return T_c, id_c, lam, nu, sys_c
 
-    T_kf, idist, _, _, sys_f = jax.lax.fori_loop(
-        0, n_iter, body, (T_kf, idist, lam0, jnp.float32(2.0), sys0)
-    )
+    with jax.named_scope("ba_lm"):
+        T_kf, idist, _, _, sys_f = jax.lax.fori_loop(
+            0, n_iter, body, (T_kf, idist, lam0, jnp.float32(2.0), sys0)
+        )
 
     # ---- outlier stripping (bundle_adjustment.cpp:843-892) — the carried
     # system's rn is already at the final accepted state ----

@@ -3,9 +3,9 @@
 Mirrors the reference's ``Config`` singleton defaults
 (/root/reference/src/config.cpp:28-64, /root/reference/include/hso/config.h)
 but as a plain dataclass: no singleton, explicitly passed where needed, and
-extended with the static-shape capacities a TPU build requires (XLA traces
-once per shape, so every batched kernel is sized by these paddings and uses
-validity masks instead of dynamic lengths).
+extended with static-shape capacities (XLA traces once per shape, so every
+batched kernel is sized by these paddings and uses validity masks instead of
+dynamic lengths).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ class Config:
     # are decorative there too — cell size is derived, reprojThresh is never
     # read, and frame_handler_mono.cpp:242 hardcodes 12 pose iterations — so
     # they are not reproduced here.  Likewise NOT reproduced as knobs, being
-    # compile-time structure in the static-shape TPU build: the 3-level
+    # compile-time structure in the static-shape build: the 3-level
     # feature pyramid (image/pyramid.py n_pyr_levels default), the 8×8
     # alignment patch (ops/align.py BORD), the epipolar sample count
     # (ops/epipolar.py), the 16-view seed refinement ring
@@ -43,11 +43,11 @@ class Config:
     #: .cpp:826-834) because its shared-memory tracker consumes them
     #: continuously; this framework's synchronous chain deliberately keeps
     #: the device pose cache pre-BA (ba_glue.py note), so recorded BA poses
-    #: are epoch-inconsistent with the tracked chain around them.  Measured
-    #: on boxseq-2200 (artifacts/boxseq_2200_ate.json): poses+idist 15.3 mm
-    #: RMSE / 161 mm max excursion; idist-only (this default) 3.5 mm /
-    #: 9.1 mm; no BA at all 3.2 mm / 7.7 mm.  Structure refinement and
-    #: outlier stripping stay on either way.
+    #: are epoch-inconsistent with the tracked chain around them.  The
+    #: boxseq-2200 A/B (scripts/boxseq_multirun.py; ROADMAP.md carries the
+    #: figures to re-measure) found poses+idist several times worse in ATE
+    #: than idist-only, this default.  Structure refinement and outlier
+    #: stripping stay on either way.
     max_n_kfs: int = 2000           #: keyframe registry capacity
     max_fts: int = 200              #: feature budget per frame
     quality_min_fts: int = 5
@@ -60,7 +60,7 @@ class Config:
     coarse_n_iter: int = 30         #: LM iterations per level (ref uses <=50 w/ early stop)
     coarse_pattern_offset: int = 2  #: first pattern table used at the top level
 
-    # ---- static-shape capacities (TPU build only) ----
+    # ---- static-shape capacities ----
     n_fts_max: int = 320            #: feature-slot padding per frame (>= max_fts;
                                     #: obs tables are sized max(n_fts_max, grid
                                     #: cells) — FrameHandler._n_obs_pad)
@@ -92,7 +92,7 @@ class Config:
                                     #: angle per match (Point::getCloseViewObs
                                     #: analogue over the two stored views,
                                     #: /root/reference/src/point.cpp:97-137)
-                                    #: — A/B artifact: artifacts/patch_source_ab.json
+                                    #: — A/B: scripts/ab_patch_source.py
 
     # ---- photometric ----
     photometric_calib: bool = False      #: online response/vignette calibration

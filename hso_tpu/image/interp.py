@@ -2,9 +2,8 @@
 
 Every alignment / residual kernel in the reference reduces to bilinear reads
 of u8 images at irregular subpixel coordinates (e.g. CoarseTracker.cpp:317-342,
-matcher.cpp:165-196).  On TPU we express these as flat ``jnp.take`` gathers
-over the full image with precomputed linear indices; XLA lowers them to
-dynamic-gather ops that stay on-chip.  All functions are shape-polymorphic
+matcher.cpp:165-196).  Here they are flat ``jnp.take`` gathers over the full
+image with precomputed linear indices.  All functions are shape-polymorphic
 over leading batch dims and clamp coordinates (callers carry validity masks).
 """
 

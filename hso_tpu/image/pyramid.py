@@ -1,6 +1,6 @@
 """Image frontend: pyramid, Sobel pyramid, photometric frame statistics.
 
-TPU-native replacement for the reference's frame construction
+Batched replacement for the reference's frame construction
 (/root/reference/src/frame.cpp:82-246 ``initFrame``/``prepareForFeatureDetect``
 and /root/reference/src/vikit/vision.cpp:19-110 ``halfSampleSSE2``): one jitted
 function produces the whole pyramid stack, Sobel-5 gradient pyramids, the mean
@@ -8,8 +8,8 @@ interior gradient magnitude (keyframe-criterion / detector threshold input) and
 mean interior intensity (exposure-ratio prior) in a single device dispatch.
 
 Images are float32 arrays in [0, 255] throughout (the reference keeps u8
-pyramids and converts per-patch; on TPU a single upfront convert is free and
-keeps every later gather in the VPU's native dtype).
+pyramids and converts per-patch; here one upfront convert serves every later
+gather).
 """
 
 from __future__ import annotations
@@ -29,9 +29,8 @@ _SOBEL5_DERIV = np.array([-1.0, -2.0, 0.0, 2.0, 1.0], np.float32)
 def half_sample(img: jnp.ndarray) -> jnp.ndarray:
     """2x2 box-filter downsample (reference halfSample, vision.cpp:19-110).
 
-    Implemented as a 2×2/stride-2 ``reduce_window`` (average pool): the
-    naive four stride-2 lane slices lower to a pathological TPU path
-    (~3.4 ms at 480×640 inside a scan vs ~0.02 ms for the pool)."""
+    Implemented as a 2×2/stride-2 ``reduce_window`` (average pool), one
+    fused op instead of four stride-2 slices."""
     h2, w2 = img.shape[0] // 2, img.shape[1] // 2
     img = img[: 2 * h2, : 2 * w2]
     return jax.lax.reduce_window(
@@ -43,9 +42,8 @@ def _sep_filter_replicate(img: jnp.ndarray, kv: np.ndarray, kh: np.ndarray) -> j
     """Separable 2D filter with edge-replicate padding (cv BORDER_REPLICATE).
 
     Implemented as shift-and-add over static stride-1 slices rather than
-    ``conv_general_dilated``: XLA lowers batch-1/channel-1 2D convs to a
-    pathological path on TPU (~0.4 ms per 5-tap pass at 480×640), while the
-    tap-sum fuses into a handful of VPU adds (~40× faster end to end)."""
+    ``conv_general_dilated``: the tap sum fuses into one elementwise pass
+    and needs no matmul precision."""
     pad = len(kv) // 2
     h, w = img.shape
     x = jnp.pad(img, ((pad, pad), (0, 0)), mode="edge")

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import os
 
-import cv2
 import numpy as np
 
 
@@ -52,6 +51,13 @@ class ImageReader:
         return len(self.files)
 
     def read_image(self, i: int) -> np.ndarray:
+        try:
+            import cv2  # decoding only; the tracking path never needs it
+        except ImportError as e:
+            raise ImportError(
+                "reading dataset images needs OpenCV (the cv2 module); "
+                "install opencv-python or pass decoded frames to "
+                "FrameHandler.add_image") from e
         img = cv2.imread(self.files[i], cv2.IMREAD_GRAYSCALE)
         if img is None:
             raise IOError(f"failed to read {self.files[i]}")

@@ -1,6 +1,6 @@
 """Map data model: frames, keyframes, the global point table.
 
-TPU re-design of the reference's pointer-graph map (Frame/Feature/Point/Map,
+Array re-design of the reference's pointer-graph map (Frame/Feature/Point/Map,
 /root/reference/src/{frame,point,map}.cpp): everything is fixed-capacity
 struct-of-arrays with validity masks.
 

@@ -10,7 +10,7 @@ convention as the Sophus ``SE3::exp`` the reference uses for every pose
 instantiated twice: ``hso_tpu.math.se3`` (jax.numpy — jit/vmap-able, used
 inside device kernels) and ``hso_tpu.math.se3np`` (numpy float64 — used by the
 host-side pipeline bookkeeping where sequential double-precision pose chains
-are cheap and TPU dispatch would dominate).
+are cheap and device dispatch would dominate).
 
 All functions broadcast over leading batch dimensions.
 """
@@ -42,16 +42,18 @@ def _make_se3(xp, float_dtype) -> types.SimpleNamespace:
         return T[..., :3, 3]
 
     # NOTE: all small contractions below are written as broadcast
-    # multiply+sum rather than einsum/@ — batched (N,3,3)·(N,3) einsums
-    # lower to N micro ``dot_general``s on TPU (~µs each), while the
-    # broadcast form fuses into plain VPU code.  Bit-identical results.
+    # multiply+sum rather than einsum/@: full f32 arithmetic on every
+    # backend (a GPU may run an f32 matmul in TF32), and XLA fuses the
+    # broadcast form into elementwise code instead of micro matmuls.
     def _mv(R, v):
         return xp.sum(R * v[..., None, :], axis=-1)
 
+    def _mm(A, B):
+        return xp.sum(A[..., :, :, None] * B[..., None, :, :], axis=-2)
+
     def mul(A, B):
         """Compose: (A*B) maps via B first, then A."""
-        R = xp.sum(rotation(A)[..., :, :, None] * rotation(B)[..., None, :, :],
-                   axis=-2)
+        R = _mm(rotation(A), rotation(B))
         t = _mv(rotation(A), translation(B)) + translation(A)
         return from_Rt(R, t)
 
@@ -96,7 +98,7 @@ def _make_se3(xp, float_dtype) -> types.SimpleNamespace:
         K = hat(phi)
         I = xp.eye(3, dtype=float_dtype)
         I = xp.broadcast_to(I, K.shape)
-        return I + a[..., None, None] * K + b[..., None, None] * (K @ K)
+        return I + a[..., None, None] * K + b[..., None, None] * _mm(K, K)
 
     def so3_log(R):
         """Inverse Rodrigues; returns (...,3)."""
@@ -156,7 +158,7 @@ def _make_se3(xp, float_dtype) -> types.SimpleNamespace:
         )
         K = hat(phi)
         I = xp.broadcast_to(xp.eye(3, dtype=float_dtype), K.shape)
-        return I + b[..., None, None] * K + c[..., None, None] * (K @ K)
+        return I + b[..., None, None] * K + c[..., None, None] * _mm(K, K)
 
     def _V_inv(phi):
         theta2 = xp.sum(phi * phi, axis=-1)
@@ -172,40 +174,40 @@ def _make_se3(xp, float_dtype) -> types.SimpleNamespace:
         )
         K = hat(phi)
         I = xp.broadcast_to(xp.eye(3, dtype=float_dtype), K.shape)
-        return I - 0.5 * K + cot[..., None, None] * (K @ K)
+        return I - 0.5 * K + cot[..., None, None] * _mm(K, K)
 
     def exp(xi):
         """xi (...,6) = [rho, phi] -> (...,3,4)."""
         xi = xp.asarray(xi, dtype=float_dtype)
         rho, phi = xi[..., :3], xi[..., 3:]
         R = so3_exp(phi)
-        t = xp.einsum("...ij,...j->...i", _V(phi), rho)
+        t = _mv(_V(phi), rho)
         return from_Rt(R, t)
 
     def log(T):
         phi = so3_log(rotation(T))
-        rho = xp.einsum("...ij,...j->...i", _V_inv(phi), translation(T))
+        rho = _mv(_V_inv(phi), translation(T))
         return xp.concatenate([rho, phi], axis=-1)
 
     def adjoint(T):
         """Adj so that exp(Adj(T) xi) * T == T * exp(xi); ordering [rho, phi]."""
         R = rotation(T)
         tK = hat(translation(T))
-        top = xp.concatenate([R, tK @ R], axis=-1)
+        top = xp.concatenate([R, _mm(tK, R)], axis=-1)
         bot = xp.concatenate([xp.zeros_like(R), R], axis=-1)
         return xp.concatenate([top, bot], axis=-2)
 
     def normalize(T):
         """Re-orthonormalise R by SVD (host hygiene after long compositions)."""
         U, _, Vt = xp.linalg.svd(rotation(T))
-        det = xp.linalg.det(U @ Vt)
+        det = xp.linalg.det(_mm(U, Vt))
         D = xp.broadcast_to(xp.eye(3, dtype=float_dtype), U.shape).copy() \
             if xp.__name__ == "numpy" else xp.broadcast_to(xp.eye(3, dtype=float_dtype), U.shape)
         if xp.__name__ == "numpy":
             D[..., 2, 2] = det
         else:
             D = D.at[..., 2, 2].set(det)
-        return from_Rt(U @ D @ Vt, translation(T))
+        return from_Rt(_mm(_mm(U, D), Vt), translation(T))
 
     return types.SimpleNamespace(
         identity=identity,

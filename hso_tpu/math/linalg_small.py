@@ -1,8 +1,8 @@
 """Closed-form small-matrix ops for batched hot paths.
 
-``jnp.linalg.inv``/``det`` lower to LU factorization loops on TPU even for
-2×2/3×3 batches (~0.3 ms extra per (512,2,2) call inside a scan); the
-adjugate forms below are a handful of fused VPU ops.
+``jnp.linalg.inv``/``det`` lower to LU factorization loops even for
+2×2/3×3 batches; the adjugate forms below are a handful of fused
+elementwise ops.
 """
 
 from __future__ import annotations
@@ -15,10 +15,9 @@ def solve_spd_small(A: jnp.ndarray, b: jnp.ndarray,
     """Solve A x = b for a small SPD system (n ≤ ~10) by a trace-time
     unrolled Cholesky + two triangular substitutions.
 
-    ``jnp.linalg.solve`` lowers to a pivoted LU kernel that costs ~1 ms per
-    call on TPU even at 7×7 — inside LM iteration loops (coarse tracker,
-    pose optimizer) that dominates the whole stage.  The unrolled form is a
-    few dozen fused scalar ops.  Damped Gauss-Newton systems are SPD by
+    ``jnp.linalg.solve`` lowers to a pivoted LU kernel; inside LM iteration
+    loops (coarse tracker, pose optimizer) the unrolled form is a few dozen
+    fused scalar ops instead.  Damped Gauss-Newton systems are SPD by
     construction; ``eps`` guards rank-deficient-but-positive corners, while
     a genuinely non-positive pivot propagates NaN so the callers' finite
     checks reject the step (the semantics ``jnp.linalg.solve`` had).

@@ -36,8 +36,7 @@ def masked_median_bisect(values: jnp.ndarray, mask: jnp.ndarray,
                          n_iter: int = 30) -> jnp.ndarray:
     """Masked upper-median by value-range bisection.
 
-    O(n·iters) pure VPU passes instead of an on-device sort (a 32k
-    ``jnp.sort`` costs ~1.4 ms on TPU v5e; this is tens of µs).  Converges to
+    O(n·iters) elementwise passes instead of an on-device sort.  Converges to
     the exact upper-median value within (max-min)/2^n_iter — use where the
     median feeds a robust threshold, not an exact order statistic.
     """

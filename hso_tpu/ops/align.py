@@ -1,11 +1,11 @@
 """Batched inverse-compositional KLT feature alignment (align2D / align1D).
 
-TPU re-design of /root/reference/src/feature_alignment.cpp (float overloads,
+Batched re-design of HSO's src/feature_alignment.cpp (float overloads,
 :164-310 ``align1D`` and :464-608 ``align2D``) and the hand-vectorized
 ``align2D_SSE2/NEON`` variants: instead of one feature at a time with SSE
 lanes across a patch row, we align ALL candidates at once — (N, 8, 8) patch
-math on the VPU, per-candidate 24×24 windows extracted once via one-hot
-matmuls, every iteration sampling gather-free (ops/gatherless).
+math, per-candidate 24×24 windows extracted once, every iteration sampling
+inside them (ops/gatherless).
 
 Semantics preserved from the reference:
   * 8×8 patches, 10×10 ref patch with border; template gradients by central
@@ -43,7 +43,8 @@ def _run_align_loop(body, init, n_iter: int):
     def wbody(c):
         return body(0, c[:-1]) + (c[-1] + 1,)
 
-    out = jax.lax.while_loop(cond, wbody, tuple(init) + (jnp.int32(0),))
+    with jax.named_scope("align_lm"):
+        out = jax.lax.while_loop(cond, wbody, tuple(init) + (jnp.int32(0),))
     return out[:-1]
 
 

@@ -1,6 +1,6 @@
 """Feature detection: FAST-9 corners + Shi-Tomasi, edgelets, grid selection.
 
-TPU re-design of the reference's hybrid ``FeatureExtractor``
+Batched re-design of the reference's hybrid ``FeatureExtractor``
 (/root/reference/src/feature_detection.cpp) and the machine-generated SSE
 FAST library (/root/reference/thirdparty/fast): everything becomes dense
 branch-free score maps over the pyramid plus a cell-grid argmax reduction.
@@ -59,9 +59,8 @@ def _shift2d(img: jnp.ndarray, dx: int, dy: int) -> jnp.ndarray:
 
 def _box_sum(img: jnp.ndarray, lo: int, hi: int) -> jnp.ndarray:
     """Sum over the box offsets [lo, hi) in both axes as separable
-    shifted-slice adds (a batch-1 TPU conv lowers to a pathological path,
-    ~0.4 ms per 8-tap pass at 480×640; the tap sums fuse into VPU adds —
-    same finding as image/pyramid._sep_filter_replicate)."""
+    shifted-slice adds that fuse into one elementwise pass (as in
+    image/pyramid._sep_filter_replicate)."""
     h, w = img.shape
     n = hi - lo
     x = jnp.pad(img, ((-lo, hi - 1), (0, 0)))

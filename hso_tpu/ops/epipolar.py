@@ -1,6 +1,6 @@
 """Batched epipolar line stereo via dense ZMNCC correlation maps.
 
-TPU re-design of ``Matcher::doLineStereo`` (/root/reference/src/matcher.cpp:
+Batched re-design of ``Matcher::doLineStereo`` (HSO's src/matcher.cpp:
 802-1049, LSD-SLAM-style): the reference walks each seed's epipolar segment
 one pixel at a time, scoring an 8×8 ZMNCC per step (the DepthFilter spreads
 this over 4 reduce threads).  Here ALL seeds are processed at once with zero
@@ -8,7 +8,7 @@ per-step work:
 
 1. one *level-packed* window per seed covering its (cropped) epipolar
    segment — seeds searching at different pyramid levels share a single
-   buffer (three masked one-hot extractions merged), so every downstream op
+   buffer (three masked window gathers merged), so every downstream op
    runs once, not once per level,
 2. zero-mean NCC against the warped reference patch for EVERY patch position
    in the window at once, from three depthwise correlations
@@ -37,6 +37,7 @@ EW = 40                      #: per-seed search window edge
 MAX_EPL = float(EW - PATCH - 4)  #: max epl length representable in a window
 MIN_EPL = 2.0
 AMBIGUITY_RATIO = 1.5        #: MIN_DISTANCE_ERROR_STEREO (matcher.cpp:796)
+_HI = jax.lax.Precision.HIGHEST
 
 
 def pack_level_windows(pyr, search_level, center_u_l, center_v_l, win: int,
@@ -45,14 +46,7 @@ def pack_level_windows(pyr, search_level, center_u_l, center_v_l, win: int,
 
     ``center_u_l/v_l`` are centres in each seed's OWN level coordinates.
     Returns (windows (S,win,win), (au, av), (h_l, w_l) per-seed image dims).
-
-    On TPU the per-level extract + select collapses into ONE fused Pallas
-    pass (each seed's level index picks the pyramid ref in-kernel,
-    :func:`hso_tpu.ops.window_pallas.pack_level_windows_tpu`); the XLA
-    fallback extracts per level and masks.
     """
-    from hso_tpu.ops.window_pallas import on_tpu, pack_level_windows_tpu
-
     s = search_level.shape[0]
     au = jnp.zeros((s,), jnp.int32)
     av = jnp.zeros((s,), jnp.int32)
@@ -67,26 +61,18 @@ def pack_level_windows(pyr, search_level, center_u_l, center_v_l, win: int,
         hs = jnp.where(sel, h, hs)
         ws = jnp.where(sel, w, ws)
 
-    if on_tpu():
-        windows = pack_level_windows_tpu(pyr, search_level, au, av, win, n_levels)
-    else:
-        from hso_tpu.ops.gatherless import extract_windows_xla
-
-        windows = jnp.zeros((s, win, win), jnp.float32)
-        for lvl in range(n_levels):
-            w_lvl = extract_windows_xla(pyr[lvl], au, av, win)
-            sel = search_level == lvl
-            windows = jnp.where(sel[:, None, None], w_lvl, windows)
+    windows = jnp.zeros((s, win, win), jnp.float32)
+    for lvl in range(n_levels):
+        w_lvl = extract_windows(pyr[lvl], au, av, win)
+        sel = search_level == lvl
+        windows = jnp.where(sel[:, None, None], w_lvl, windows)
     return windows, (au, av), (hs, ws)
 
 
 def _depthwise_corr(windows: jnp.ndarray, kernels: jnp.ndarray) -> jnp.ndarray:
-    """Per-seed valid correlation: (S, EW, EW) ⊛ (S, kh, kw) → (S, EW-kh+1, ...).
-
-    Implementation notes (measured on v5e): the grouped conv is ~0.9 ms at
-    S=1536 — not MXU-mapped (per-seed kernels), but XLA's lowering beats
-    the "obvious" 64-shifted-FMA unroll (~5 ms: every x-shifted slice is a
-    lane-misaligned window that costs a vector rotate)."""
+    """Per-seed valid correlation: (S, EW, EW) ⊛ (S, kh, kw) → (S, EW-kh+1, ...),
+    as one seed-grouped convolution (HIGHEST precision: cuDNN may otherwise
+    run it in TF32)."""
     s = windows.shape[0]
     out = jax.lax.conv_general_dilated(
         windows[None],                       # NCHW: (1, S, EW, EW)
@@ -94,14 +80,14 @@ def _depthwise_corr(windows: jnp.ndarray, kernels: jnp.ndarray) -> jnp.ndarray:
         window_strides=(1, 1),
         padding="VALID",
         feature_group_count=s,
+        precision=_HI,
     )
     return out[0]
 
 
 def _box_sums(x: jnp.ndarray, k: int) -> jnp.ndarray:
     """VALID k×k box sum of (S, E, E) → (S, E-k+1, E-k+1) as separable
-    shifted adds (a seed-grouped conv serializes on TPU; this fuses into
-    2k VPU adds)."""
+    shifted adds (2k adds that XLA fuses into one elementwise pass)."""
     e = x.shape[-1]
     out_w = e - k + 1
     acc = x[:, :, 0:out_w]
@@ -130,7 +116,6 @@ def epipolar_zmncc_search(
     n_line (S,), epl_dir (S,2))."""
     au, av = anchors
     hs, ws = img_hw
-    s = ref_patch.shape[0]
 
     d = px_close - px_far
     epl_len = jnp.linalg.norm(d, axis=-1)
@@ -144,64 +129,50 @@ def epipolar_zmncc_search(
     n_line = jnp.ceil(length + 2.0 * (1.0 + pad)).astype(jnp.int32)
     n_line = jnp.minimum(n_line, n_steps - 1)
 
-    from hso_tpu.ops.window_pallas import on_tpu
+    # ---- dense ZMNCC over all patch positions ----
+    sum_t = _box_sums(windows, PATCH)
+    sum_t2 = _box_sums(windows * windows, PATCH)
+    corr = _depthwise_corr(windows, ref_patch)
+    area = float(PATCH * PATCH)
+    ref_mean = jnp.mean(ref_patch, axis=(1, 2))
+    ref_zm = ref_patch - ref_mean[:, None, None]
+    ref_den = jnp.sum(ref_zm * ref_zm, axis=(1, 2))
+    num = corr - ref_mean[:, None, None] * sum_t
+    var_t = jnp.maximum(sum_t2 - sum_t * sum_t / area, 0.0)
+    zmncc = num / (jnp.sqrt(ref_den[:, None, None] * var_t) + 1e-12)
 
-    if on_tpu():
-        # fused Pallas kernel: dense ZMNCC + line sampling + best/second in
-        # VMEM, 128 seeds per lane tile (ops/epipolar_pallas.py; the XLA
-        # formulations are HBM-bandwidth-bound, see that module's docstring)
-        from hso_tpu.ops.epipolar_pallas import zmncc_line_scores_tpu
+    # ---- sample the score map along the line ----
+    ks = jnp.arange(n_steps, dtype=jnp.float32)
+    pu = start[:, 0:1] + dir_unit[:, 0:1] * ks[None, :]      # (S, K)
+    pv = start[:, 1:2] + dir_unit[:, 1:2] * ks[None, :]
+    # patch at position p reads rows floor(p)-4+[0,8) with fractional
+    # blend — equivalently the score map sampled at p - 4 - anchor
+    su = pu - 4.0 - au[:, None].astype(jnp.float32)
+    sv = pv - 4.0 - av[:, None].astype(jnp.float32)
+    cw = zmncc.shape[-1]
+    y = jnp.arange(cw, dtype=jnp.float32)
+    wy = jnp.maximum(0.0, 1.0 - jnp.abs(sv[..., None] - y))  # (S, K, CW)
+    wx = jnp.maximum(0.0, 1.0 - jnp.abs(su[..., None] - y))
+    scores = jnp.einsum("sky,syx,skx->sk", wy, zmncc, wx, precision=_HI)
 
-        su0 = start[:, 0] - 4.0 - au.astype(jnp.float32)
-        sv0 = start[:, 1] - 4.0 - av.astype(jnp.float32)
-        score_best, score_second, k_best = zmncc_line_scores_tpu(
-            windows, ref_patch, su0, sv0, dir_unit[:, 0], dir_unit[:, 1],
-            n_line, au, av, hs, ws, n_steps)
-    else:
-        # ---- dense ZMNCC over all patch positions (XLA fallback) ----
-        sum_t = _box_sums(windows, PATCH)
-        sum_t2 = _box_sums(windows * windows, PATCH)
-        corr = _depthwise_corr(windows, ref_patch)
-        area = float(PATCH * PATCH)
-        ref_mean = jnp.mean(ref_patch, axis=(1, 2))
-        ref_zm = ref_patch - ref_mean[:, None, None]
-        ref_den = jnp.sum(ref_zm * ref_zm, axis=(1, 2))
-        num = corr - ref_mean[:, None, None] * sum_t
-        var_t = jnp.maximum(sum_t2 - sum_t * sum_t / area, 0.0)
-        zmncc = num / (jnp.sqrt(ref_den[:, None, None] * var_t) + 1e-12)
+    hf = hs[:, None].astype(jnp.float32)
+    wf = ws[:, None].astype(jnp.float32)
+    k_mask = (
+        (ks[None, :] <= n_line[:, None].astype(jnp.float32))
+        & (su >= 0.0) & (su <= cw - 1.0) & (sv >= 0.0) & (sv <= cw - 1.0)
+        # full patch must also be inside the image, not just the window
+        & (pu - 4.0 >= 0.0) & (pu + 4.0 <= wf - 1.0)
+        & (pv - 4.0 >= 0.0) & (pv + 4.0 <= hf - 1.0)
+    )
+    scores = jnp.where(k_mask, scores, -jnp.inf)
 
-        # ---- sample the score map along the line ----
-        ks = jnp.arange(n_steps, dtype=jnp.float32)
-        pu = start[:, 0:1] + dir_unit[:, 0:1] * ks[None, :]      # (S, K)
-        pv = start[:, 1:2] + dir_unit[:, 1:2] * ks[None, :]
-        # patch at position p reads rows floor(p)-4+[0,8) with fractional
-        # blend — equivalently the score map sampled at p - 4 - anchor
-        su = pu - 4.0 - au[:, None].astype(jnp.float32)
-        sv = pv - 4.0 - av[:, None].astype(jnp.float32)
-        cw = zmncc.shape[-1]
-        y = jnp.arange(cw, dtype=jnp.float32)
-        wy = jnp.maximum(0.0, 1.0 - jnp.abs(sv[..., None] - y))  # (S, K, CW)
-        wx = jnp.maximum(0.0, 1.0 - jnp.abs(su[..., None] - y))
-        scores = jnp.einsum("sky,syx,skx->sk", wy, zmncc, wx)
-
-        hf = hs[:, None].astype(jnp.float32)
-        wf = ws[:, None].astype(jnp.float32)
-        k_mask = (
-            (ks[None, :] <= n_line[:, None].astype(jnp.float32))
-            & (su >= 0.0) & (su <= cw - 1.0) & (sv >= 0.0) & (sv <= cw - 1.0)
-            # full patch must also be inside the image, not just the window
-            & (pu - 4.0 >= 0.0) & (pu + 4.0 <= wf - 1.0)
-            & (pv - 4.0 >= 0.0) & (pv + 4.0 <= hf - 1.0)
-        )
-        scores = jnp.where(k_mask, scores, -jnp.inf)
-
-        k_best = jnp.argmax(scores, axis=-1)
-        score_best = jnp.max(scores, axis=-1)
-        # second best at loop distance > 1
-        far_mask = jnp.abs(ks[None, :]
-                           - k_best[:, None].astype(jnp.float32)) > 1.0
-        scores_far = jnp.where(far_mask, scores, -jnp.inf)
-        score_second = jnp.max(scores_far, axis=-1)
+    k_best = jnp.argmax(scores, axis=-1)
+    score_best = jnp.max(scores, axis=-1)
+    # second best at loop distance > 1
+    far_mask = jnp.abs(ks[None, :]
+                       - k_best[:, None].astype(jnp.float32)) > 1.0
+    scores_far = jnp.where(far_mask, scores, -jnp.inf)
+    score_second = jnp.max(scores_far, axis=-1)
 
     ambiguous = (score_second > -jnp.inf) & (
         AMBIGUITY_RATIO * score_second > score_best

@@ -1,24 +1,20 @@
-"""Gather-free scattered sampling — the framework's core TPU idiom.
+"""Windowed sampling: one window gather per feature, then gather-free
+subpixel reads inside the windows.
 
-TPU gathers at irregular coordinates are slow (measured ~1 ms for a
-256×24×24 window gather on v5e, ~7 ns/element), while MXU matmuls are nearly
-free at these sizes.  Every scattered-access pattern in the reference's hot
-loops (patch sampling in CoarseTracker.cpp:317-342, warp/align in
-matcher.cpp, epipolar scoring) is reformulated here as structured matrix
-products:
+Every scattered-access pattern in the reference's hot loops (patch sampling
+in CoarseTracker.cpp:317-342, warp/align in matcher.cpp, epipolar scoring)
+is expressed through:
 
-* ``extract_windows``  — per-feature image windows via one-hot row/col
-  matmuls (a gather expressed as two matmuls; ~0.02 ms for 256×24×24 on v5e,
-  60× faster than ``jnp.take``).
+* ``extract_windows``  — per-feature (win × win) image windows, one
+  ``dynamic_slice`` each.
 * ``bilinear_grid``    — a G×G bilinear patch grid *inside* each window via
-  banded (2-tap triangle) interpolation matrices: sub-pixel patch sampling
-  with zero gathers, so iterative aligners (LM loops) never touch memory
-  irregularly after a single window extraction per level.
+  banded (2-tap triangle) interpolation matrices, so iterative aligners (LM
+  loops) never touch the image again after one window extraction per level.
 * ``sample_points``    — scattered single-point bilinear reads as two-tap
-  row/col matmul contractions.
+  row/col contractions.
 
-All ops are exact for integer-valued images at f32 precision (one-hot rows
-select, they don't blend) and run on CPU identically for tests.
+Every contraction runs at ``Precision.HIGHEST``: a GPU may otherwise take an
+f32 matmul in TF32 (10 mantissa bits), which would round pixel intensities.
 """
 
 from __future__ import annotations
@@ -34,34 +30,26 @@ def extract_windows(
 ) -> jnp.ndarray:
     """Extract (N, win, win) windows with integer top-left anchors.
 
-    Anchors are clipped so windows stay inside the image; callers keep
-    coordinates consistent by using the clipped anchors from
-    :func:`clip_anchor`.
+    One ``dynamic_slice`` per window (a native gather on the GPU).  Callers
+    get anchors from :func:`clip_anchor` and keep coordinates consistent
+    with the clipped values; an anchor outside [0, dim - win] (another
+    pyramid level's, in :func:`hso_tpu.ops.epipolar.pack_level_windows`) is
+    clamped into it, as ``dynamic_slice`` does.
 
-    On TPU this dispatches to the Pallas aligned-block kernel
-    (:mod:`hso_tpu.ops.window_pallas`); elsewhere it runs the one-hot
-    matmul formulation below (bit-identical results).
+    An image smaller than the window (the top pyramid level of a small
+    camera) gets negative anchors from :func:`clip_anchor`; the window then
+    holds the image at that offset and zeros before it.
     """
-    from hso_tpu.ops.window_pallas import extract_windows_tpu, on_tpu
-
-    if on_tpu():
-        return extract_windows_tpu(img, anchor_u, anchor_v, win)
-    return extract_windows_xla(img, anchor_u, anchor_v, win)
-
-
-def extract_windows_xla(
-    img: jnp.ndarray, anchor_u: jnp.ndarray, anchor_v: jnp.ndarray, win: int
-) -> jnp.ndarray:
-    """One-hot matmul window extraction (backend-independent reference
-    implementation; out-of-range anchor rows/cols read as 0)."""
     h, w = img.shape
-    n = anchor_u.shape[0]
-    rowidx = (anchor_v[:, None] + jnp.arange(win)[None, :]).reshape(-1)
-    ev = (rowidx[:, None] == jnp.arange(h)[None, :]).astype(img.dtype)
-    rows = jax.lax.dot(ev, img, precision=_HI).reshape(n, win, w)
-    colidx = anchor_u[:, None] + jnp.arange(win)[None, :]
-    eu = (colidx[:, :, None] == jnp.arange(w)[None, None, :]).astype(img.dtype)
-    return jnp.einsum("nvw,nuw->nvu", rows, eu, precision=_HI)
+    ph, pw = max(win - h, 0), max(win - w, 0)
+    if ph or pw:
+        img = jnp.pad(img, ((ph, 0), (pw, 0)))
+        anchor_u, anchor_v = anchor_u + pw, anchor_v + ph
+
+    def one(u, v):
+        return jax.lax.dynamic_slice(img, (v, u), (win, win))
+
+    return jax.vmap(one)(anchor_u.astype(jnp.int32), anchor_v.astype(jnp.int32))
 
 
 def clip_anchor(center_u, center_v, win: int, grid: int, h: int, w: int):
@@ -129,7 +117,7 @@ def sample_points(img: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarr
     """Scattered single-point bilinear reads as two-tap matmuls.
 
     out[n] = bilerp(img)(u[n], v[n]).  Cost: one (N,H)x(H,W) and one
-    elementwise+reduce — MXU-bound, no gathers.  Coordinates outside the
+    elementwise+reduce, no gathers.  Coordinates outside the
     image read as 0.
     """
     h, w = img.shape

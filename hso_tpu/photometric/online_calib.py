@@ -7,7 +7,7 @@ everywhere (/root/reference/CMakeLists.txt:100,
 /root/reference/src/frame_handler_mono.cpp:53-56); only the exposure-*ratio*
 estimate inside the coarse tracker is live.  For TUM MonoVO-class sequences
 (auto-exposure, strong vignette) full calibration is required, so this module
-provides it, TPU-style: the whole estimation is one batched masked solve over
+provides it, batched: the whole estimation is one masked solve over
 a dense observation table instead of the reference's per-point C++ loops.
 
 Model (same as RA-L'18):  O = f( e_j · V(r) · L_p )  — observed intensity O
@@ -45,6 +45,7 @@ N_VIG = 3             #: vignette polynomial order (RA-L: radial poly in r²)
 INT_LO = 3.0          #: usable intensity range (saturation exclusion)
 INT_HI = 252.0
 _RIDGE = 1e-4
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _resp_basis(x_norm: jnp.ndarray) -> jnp.ndarray:
@@ -61,11 +62,11 @@ def _vig_basis(r2_norm: jnp.ndarray) -> jnp.ndarray:
 def log_inverse_response(intensity: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
     """log U(O) for O in [0, 255] (clamped to the usable range)."""
     x = jnp.clip(intensity, 1e-3, 255.0) / 255.0
-    return jnp.log(x * 255.0) + _resp_basis(x) @ c
+    return jnp.log(x * 255.0) + jnp.dot(_resp_basis(x), c, precision=_HI)
 
 
 def log_vignette(r2_norm: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
-    return _vig_basis(r2_norm) @ v
+    return jnp.dot(_vig_basis(r2_norm), v, precision=_HI)
 
 
 @functools.partial(jax.jit, static_argnames=("n_rounds",))
@@ -90,8 +91,9 @@ def solve_photometric(
     log_o = jnp.log(jnp.clip(obs_int, 1e-3, 255.0))
 
     def residual(c, v, log_e, log_l):
-        lu = log_o + phi @ c
-        return lu - (psi @ v) - log_e[:, None] - log_l[None, :]
+        lu = log_o + jnp.dot(phi, c, precision=_HI)
+        lv = jnp.dot(psi, v, precision=_HI)
+        return lu - lv - log_e[:, None] - log_l[None, :]
 
     def masked_mean(x, w, axis):
         return jnp.sum(x * w, axis=axis) / jnp.maximum(jnp.sum(w, axis=axis), 1e-9)
@@ -102,8 +104,8 @@ def solve_photometric(
         r = residual(c, v, log_e, log_l)
         w = w_base * jnp.minimum(1.0, huber / jnp.maximum(jnp.abs(r), 1e-9))
 
-        lu = log_o + phi @ c
-        lv = psi @ v
+        lu = log_o + jnp.dot(phi, c, precision=_HI)
+        lv = jnp.dot(psi, v, precision=_HI)
         # 1. radiances
         log_l = masked_mean(lu - lv - log_e[:, None], w, axis=0)
         # 2. exposures (gauge: first frame = 0)
@@ -114,8 +116,8 @@ def solve_photometric(
         y = log_e[:, None] + log_l[None, :] - log_o
         A = jnp.concatenate([phi, -psi], axis=-1)               # (F, M, K+3)
         Aw = A * w[..., None]
-        H = jnp.einsum("fmi,fmj->ij", Aw, A) + _RIDGE * jnp.eye(N_RESP + N_VIG)
-        g = jnp.einsum("fmi,fm->i", Aw, y)
+        H = jnp.einsum("fmi,fmj->ij", Aw, A, precision=_HI) + _RIDGE * jnp.eye(N_RESP + N_VIG)
+        g = jnp.einsum("fmi,fm->i", Aw, y, precision=_HI)
         sol = jnp.linalg.solve(H, g)
         return (sol[:N_RESP], sol[N_RESP:], log_e, log_l)
 

@@ -1,24 +1,23 @@
 """Coarse tracker: direct sparse image alignment with joint exposure ratio.
 
-TPU re-design of the reference CoarseTracker
+Batched re-design of the reference CoarseTracker
 (/root/reference/src/CoarseTracker.cpp): Levenberg-Marquardt over a 7-DoF
 state [exposure_ratio; se3] with per-level MAD robust thresholds, DSO
 saturation energy, and forward- or inverse-compositional updates chosen per
 frame (frame_handler_mono.cpp:184-209).
 
 Design — the whole coarse-to-fine track is ONE jitted device function, and
-the LM loop touches memory only through MXU matmuls:
+the LM loop reads only per-feature windows:
 
-1. Per pyramid level, a single one-hot-matmul *window extraction* pulls a
-   24×24 window per feature around its predicted projection
-   (:mod:`hso_tpu.ops.gatherless`; measured 60× faster than TPU gathers).
+1. Per pyramid level, a single *window extraction* pulls a 24×24 window per
+   feature around its predicted projection (:mod:`hso_tpu.ops.gatherless`).
 2. Every LM evaluation bilinearly samples its G×G patch grid *inside* those
    windows via banded interpolation matmuls — zero gathers per iteration.
    Patch values / gradients at the DSO pattern constellation are picked from
    the grid by static 0/1 selection matmuls; image gradients are central
    differences of the sampled grid, exactly the reference's stencil.
 3. The 7×7 Gauss-Newton system is one ``(w·J)ᵀJ`` matmul (the SSE
-   ``Accumulator7`` of MatrixAccumulator.h collapses into the MXU), and the
+   ``Accumulator7`` of MatrixAccumulator.h collapses into it), and the
    level's LM loop is a ``lax.while_loop`` with accept/reject in the carry.
 
 The factory is cached per (camera, level range, mode) — all trace-static.
@@ -45,6 +44,7 @@ from hso_tpu.ops.gatherless import (
 from hso_tpu.ops.patterns import PATTERNS, PATTERN_PADDING
 
 WIN = 24  # per-feature window size (all levels)
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _jacobian_uv_xi(xyz: jnp.ndarray) -> jnp.ndarray:
@@ -97,11 +97,15 @@ def _pattern_samples(grid_vals: jnp.ndarray, sel, with_grad: bool):
     """grid_vals (N, G, G) → pattern values (N, P) [+ gradients]."""
     n = grid_vals.shape[0]
     flat = grid_vals.reshape(n, -1)
-    vals = flat @ jnp.asarray(sel["val"]).T
+
+    def pick(key):
+        return jnp.dot(flat, jnp.asarray(sel[key]).T, precision=_HI)
+
+    vals = pick("val")
     if not with_grad:
         return vals, None, None
-    gx = 0.5 * (flat @ jnp.asarray(sel["xp"]).T - flat @ jnp.asarray(sel["xm"]).T)
-    gy = 0.5 * (flat @ jnp.asarray(sel["yp"]).T - flat @ jnp.asarray(sel["ym"]).T)
+    gx = 0.5 * (pick("xp") - pick("xm"))
+    gy = 0.5 * (pick("yp") - pick("ym"))
     return vals, gx, gy
 
 
@@ -216,8 +220,8 @@ def make_coarse_tracker(
             wgt = jnp.where(m & ~saturated, hw, 0.0)
             J7 = jnp.concatenate([-ref_patch[..., None], J_T], axis=-1).reshape(-1, 7)
             Jw = J7 * wgt.reshape(-1)[:, None]
-            H = Jw.T @ J7
-            b = -(Jw.T @ r.reshape(-1))
+            H = jnp.dot(Jw.T, J7, precision=_HI)
+            b = -jnp.dot(Jw.T, r.reshape(-1), precision=_HI)
             E_norm = E / jnp.maximum(n_terms, 1).astype(jnp.float32)
             return E_norm, H, b, n_terms
 
@@ -236,25 +240,7 @@ def make_coarse_tracker(
         huber = jnp.where(few, 5.2, med + sigma)
         cutoff = jnp.where(few, 100.0, jnp.maximum(3.0 * (med + sigma), 10.0))
 
-        # ---- LM loop: fused Pallas kernel on TPU for the IC/pinhole case
-        # (track/coarse_pallas.py — the staged XLA loop is per-op-overhead
-        # bound at ~40 ops × 10-50 iterations per level) ----
-        from hso_tpu.ops.window_pallas import on_tpu
-
-        if inverse and on_tpu() and type(cam).__name__ == "PinholeCamera":
-            from hso_tpu.ops.patterns import PATTERNS as _PATS
-            from hso_tpu.track.coarse_pallas import coarse_level_ic_tpu
-
-            pat_idx = max_level - level + pattern_offset
-            T_f, a_f, energy, nt, iters = coarse_level_ic_tpu(
-                w_cur, ref_patch, j_ic_raw, xyz_ref, au_c, av_c, vis,
-                T, a, huber, cutoff, float(fxl), float(fyl),
-                float(cam.cx * scale), float(cam.cy * scale),
-                g=G, center=c, pattern=tuple(map(tuple, _PATS[pat_idx])),
-                n_iter=n_iter, is_top=bool(is_top), border=int(border),
-                h_img=int(h), w_img=int(w))
-            return T_f, a_f, energy, nt // n_pat, iters
-
+        # ---- LM loop ----
         E0, H0, b0, nt0 = evaluate(T, a, huber, cutoff)
 
         def lm_body(carry):
@@ -287,7 +273,9 @@ def make_coarse_tracker(
             return (it < n_iter) & ~stop
 
         carry = (T, a, jnp.float32(0.1), E0, H0, b0, nt0, jnp.int32(0), jnp.bool_(False))
-        T, a, _, energy, _, _, n_terms, iters, _ = jax.lax.while_loop(lm_cond, lm_body, carry)
+        with jax.named_scope("coarse_lm"):
+            T, a, _, energy, _, _, n_terms, iters, _ = jax.lax.while_loop(
+                lm_cond, lm_body, carry)
         return T, a, energy, n_terms // n_pat, iters
 
     def track(ref_pyr, cur_pyr, px_ref, f_ref, dist_ref, T_cur_ref, a_init):

@@ -1,6 +1,6 @@
 """Batched direct matching of map points into the current frame.
 
-TPU re-design of ``Matcher::findMatchDirect`` (/root/reference/src/matcher.cpp
+Batched re-design of ``Matcher::findMatchDirect`` (HSO's src/matcher.cpp
 :270-375): for every candidate point at once — affine warp of its memoized
 host patch, search-level selection, exposure compensation, inverse-
 compositional alignment (2D for corners, along-normal 1D for edgelets), NCC
@@ -84,35 +84,17 @@ def match_points(
     windows, anchors, img_hw = pack_level_windows(
         cur_pyr, search_level, px_init[:, 0], px_init[:, 1], 24, n_levels
     )
-    from hso_tpu.ops.window_pallas import on_tpu
-
-    if on_tpu():
-        # fused Pallas kernel: LM alignment + NCC + gradient sample in one
-        # pass (ops/align_pallas.py — the staged XLA form is op-overhead
-        # bound; validated equivalent)
-        from hso_tpu.ops.align_pallas import align_match_tpu
-
-        out8 = align_match_tpu(
-            is_edge, grad_cur, ref_border, px_init, valid0, windows,
-            anchors[0], anchors[1], img_hw[0], img_hw[1],
-            win=24, n_iter=align_max_iter)
-        px_l = out8[:2].T
-        conv = out8[2] > 0.5
-        score = out8[3]
-        gx_c, gy_c = out8[4], out8[5]
-    else:
-        rm = align_mixed(is_edge, grad_cur, ref_border, px_init,
-                         n_iter=align_max_iter, valid=valid0,
-                         windows=windows, anchors=anchors, img_hw=img_hw)
-        px_l = rm["px"]
-        conv = rm["converged"]
-        score = ncc(ref_patch, rm["cur_patch"])
-        # gradient direction from the packed windows (see
-        # gatherless.sample_gradient_in_windows — full-image Sobel sampling
-        # is the expensive path on TPU)
-        gx_c, gy_c = sample_gradient_in_windows(
-            windows, anchors[0], anchors[1], px_l[:, 0], px_l[:, 1]
-        )
+    rm = align_mixed(is_edge, grad_cur, ref_border, px_init,
+                     n_iter=align_max_iter, valid=valid0,
+                     windows=windows, anchors=anchors, img_hw=img_hw)
+    px_l = rm["px"]
+    conv = rm["converged"]
+    score = ncc(ref_patch, rm["cur_patch"])
+    # gradient direction from the packed windows (see
+    # gatherless.sample_gradient_in_windows)
+    gx_c, gy_c = sample_gradient_in_windows(
+        windows, anchors[0], anchors[1], px_l[:, 0], px_l[:, 1]
+    )
     disp_ok = jnp.linalg.norm(px_l - px_init, axis=-1) < 20.0
     gn = jnp.stack([gx_c, gy_c], -1)
     gn = gn / jnp.maximum(jnp.linalg.norm(gn, axis=-1, keepdims=True), 1e-9)
@@ -165,10 +147,8 @@ def select_candidates(
 
     key = priority * p + jnp.arange(p, dtype=jnp.int32)
     key = jnp.where(ok, key, -1)
-    # scatter-free per-cell max: a (C, P) membership-masked reduction.
-    # ``.at[cidx].max`` is a TPU scatter (custom call, measured ~1.4 ms at
-    # P=4096 inside the fused frame scan); the dense compare-and-reduce is
-    # a trivially vectorized C×P pass (~1.4 M lanes here).
+    # scatter-free per-cell max: a (C, P) membership-masked reduction
+    # (a C×P compare-and-reduce, ~1.4 M elements here).
     member = cidx[None, :] == jnp.arange(n_cells, dtype=jnp.int32)[:, None]
     keyg = jnp.where(member, key[None, :], -1)       # (C, P)
     best = jnp.max(keyg, axis=1)

@@ -1,6 +1,6 @@
 """Motion-only pose refinement on reprojection errors.
 
-TPU re-design of ``pose_optimizer::optimizeLevenbergMarquardt3rd``
+Batched re-design of ``pose_optimizer::optimizeLevenbergMarquardt3rd``
 (/root/reference/src/pose_optimizer.cpp:399-771): Levenberg-Marquardt on the
 unit-plane reprojection error of all matched features, with
 
@@ -31,6 +31,7 @@ from hso_tpu.math.linalg_small import solve_spd_small
 from hso_tpu.math.robust import huber_weight, mad_scale_of_abs
 
 EPS = 1e-10
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _project2d(p):
@@ -110,11 +111,12 @@ def optimize_pose(
         J = _jacobian_uv_xi(p_t) * sqrt_inv_cov[:, None, None]   # (N,2,6)
         J_edge = jnp.sum(grad[..., None] * J, axis=1)            # (N,6)
         e_edge = r_edge
-        A_e = jnp.einsum("ni,nj,n->ij", J_edge, J_edge, jnp.where(is_edgelet, wgt, 0.0))
-        b_e = -jnp.einsum("ni,n,n->i", J_edge, e_edge, jnp.where(is_edgelet, wgt, 0.0))
+        w_e = jnp.where(is_edgelet, wgt, 0.0)
+        A_e = jnp.einsum("ni,nj,n->ij", J_edge, J_edge, w_e, precision=_HI)
+        b_e = -jnp.einsum("ni,n,n->i", J_edge, e_edge, w_e, precision=_HI)
         w_c = jnp.where(is_edgelet, 0.0, wgt)
-        A_c = jnp.einsum("nki,nkj,n->ij", J, J, w_c)
-        b_c = -jnp.einsum("nki,nk,n->i", J, e, w_c)
+        A_c = jnp.einsum("nki,nkj,n->ij", J, J, w_c, precision=_HI)
+        b_c = -jnp.einsum("nki,nk,n->i", J, e, w_c, precision=_HI)
         return A_e + A_c, b_e + b_c
 
     chi2_0 = chi2_of(T)
@@ -160,19 +162,9 @@ def optimize_pose(
         stop = stop | ~accepted
         return T_c, chi2_c, mu, nu, stop, A_last
 
-    from hso_tpu.ops.window_pallas import on_tpu
-
-    if on_tpu():
-        # fused Pallas kernel for the whole trial loop
-        # (track/pose_pallas.py; the staged form is op-overhead bound)
-        from hso_tpu.track.pose_pallas import pose_lm_tpu
-
-        T, A_last, chi2_f = pose_lm_tpu(
-            T, p_world, obs_uv, grad, sqrt_inv_cov, is_edgelet,
-            is_temporary, valid, scale_pt, scale_ls, n_iter=n_iter)
-    else:
-        init = (T, chi2_0, jnp.float32(0.1), jnp.float32(2.0),
-                jnp.bool_(False), jnp.zeros((6, 6), jnp.float32))
+    init = (T, chi2_0, jnp.float32(0.1), jnp.float32(2.0),
+            jnp.bool_(False), jnp.zeros((6, 6), jnp.float32))
+    with jax.named_scope("pose_lm"):
         T, chi2_f, _, _, _, A_last = jax.lax.fori_loop(0, n_iter, outer, init)
 
     # ---- outlier stripping + stats (pose_optimizer.cpp:696-770) ----

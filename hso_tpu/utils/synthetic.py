@@ -3,15 +3,24 @@
 Renders views of a textured plane (world z = z0) for any camera pose with
 known per-pixel depth, giving every estimator a closed-loop oracle: the
 reference has no unit tests at all (SURVEY.md §4); this is the foundation of
-ours.  Pure host-side numpy/cv2 — not part of the measured compute path.
+ours.  Pure host-side numpy/scipy — not part of the measured compute path.
 """
 
 from __future__ import annotations
 
-import cv2
 import numpy as np
+from scipy.ndimage import gaussian_filter, map_coordinates
 
 from hso_tpu.math import se3np
+
+
+def _texture(rng, size: int, blur: float) -> np.ndarray:
+    """Blurred uniform noise renormalised to grey levels [15, 235].  The
+    blur reflects at the border without repeating the edge pixel and spans
+    4σ, as OpenCV's ``GaussianBlur`` does on float input."""
+    t = rng.integers(0, 256, size=(size, size)).astype(np.float32)
+    t = gaussian_filter(t, blur, mode="mirror", truncate=4.0)
+    return (t - t.min()) / (t.max() - t.min()) * 220.0 + 15.0
 
 
 class PlaneScene:
@@ -22,11 +31,7 @@ class PlaneScene:
         self.z0 = float(z0)
         self.extent = float(extent)  # plane spans [-extent, extent] in x and y
         if tex is None:
-            rng = np.random.default_rng(seed)
-            tex = rng.integers(0, 256, size=(tex_size, tex_size)).astype(np.float32)
-            tex = cv2.GaussianBlur(tex, (0, 0), blur)
-            # renormalize to a healthy contrast range
-            tex = (tex - tex.min()) / (tex.max() - tex.min()) * 220.0 + 15.0
+            tex = _texture(np.random.default_rng(seed), tex_size, blur)
         else:
             tex = np.asarray(tex, np.float32)
             tex_size = tex.shape[0]
@@ -51,14 +56,9 @@ class PlaneScene:
         lam = (self.z0 - t_w[2]) / f_w[:, 2]
         p_w = t_w[None, :] + lam[:, None] * f_w
         tx, ty = self._world_to_tex(p_w[:, 0], p_w[:, 1])
-        img = cv2.remap(
-            self.tex,
-            tx.reshape(h, w).astype(np.float32),
-            ty.reshape(h, w).astype(np.float32),
-            cv2.INTER_LINEAR,
-            borderMode=cv2.BORDER_CONSTANT,
-            borderValue=0.0,
-        )
+        img = map_coordinates(
+            self.tex, [ty.reshape(h, w), tx.reshape(h, w)], order=1,
+            mode="constant", cval=0.0)
         behind = (lam <= 0).reshape(h, w)
         img = np.where(behind, 0.0, img) * exposure
         return np.clip(img, 0, 255).astype(np.uint8)
@@ -98,9 +98,7 @@ class BoxScene:
         rng = np.random.default_rng(seed)
 
         def tex():
-            t = rng.integers(0, 256, size=(tex_size, tex_size)).astype(np.float32)
-            t = cv2.GaussianBlur(t, (0, 0), blur)
-            return (t - t.min()) / (t.max() - t.min()) * 220.0 + 15.0
+            return _texture(rng, tex_size, blur)
 
         self.tex_size = tex_size
         hw, hh, d = float(half_width), float(half_height), float(depth)

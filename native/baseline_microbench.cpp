@@ -23,7 +23,7 @@
 // Everything else the reference does per frame (reprojection, pose
 // optimizer, detection, BA amortised over keyframes) is EXCLUDED, which
 // biases the anchor IN THE REFERENCE'S FAVOUR (fewer modelled costs =>
-// higher anchor fps => lower reported speedup for the TPU port).
+// higher anchor fps => lower reported speedup for this framework).
 //
 // Operating point (cited):
 //   n_features = 200        maxFts, /root/reference/src/config.cpp

@@ -1,10 +1,10 @@
 // hso_io: native dataset reader with multi-threaded decode prefetch.
 //
-// TPU-native equivalent of the reference's IO layer (ImageReader.cpp +
+// Native equivalent of the reference's IO layer (ImageReader.cpp +
 // the implicit decode-on-the-tracking-thread of test_dataset.cpp): directory
 // scan, grayscale decode, resize — but decoded AHEAD of the pipeline by a
-// worker pool into a bounded ring, so the host tracking loop (which on TPU
-// is mostly waiting on device steps) never stalls on image decode.
+// worker pool into a bounded ring, so the host tracking loop (mostly
+// waiting on device steps) never stalls on image decode.
 //
 // C API consumed from Python via ctypes (no pybind11 in this image).
 

@@ -32,8 +32,9 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", os.path.join(ROOT, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from hso_tpu.utils.jax_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.distributed.initialize(f"localhost:{PORT}", num_processes=NPROC,
                            process_id=PID)
 

@@ -2,9 +2,9 @@
 
 The reference re-selects each map point's reference patch per match by
 viewing angle (``Point::getCloseViewObs``, /root/reference/src/point.cpp:
-97-137); the TPU build memoizes ONE view refreshed at each observing
-keyframe (recency) — fine under smooth forward motion, untested under
-view-revisiting motion (VERDICT r2/r3 carryover).  ``Config.patch_source=
+97-137); this framework memoizes ONE view refreshed at each observing
+keyframe (recency) — fine under smooth forward motion, to be checked under
+view-revisiting motion.  ``Config.patch_source=
 "closest"`` adds the host view as a second candidate and picks the smaller
 viewing angle per match inside the fused step.
 
@@ -30,8 +30,9 @@ import numpy as np
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", os.path.join(ROOT, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from hso_tpu.utils.jax_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from bench import bench_camera, bench_scene
 from hso_tpu.config import Config

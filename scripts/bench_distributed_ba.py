@@ -2,18 +2,17 @@
 
 BASELINE target: ≥80% weak-scaling efficiency at ≥2 hosts for the
 point-block-sharded Schur BA (v3 layout: the dense (P, K) observation grid
-partitioned across the mesh along the point axis, camera-camera Hessian psum
-over ICI).  This harness keeps the per-device landmark/observation load
+partitioned across the mesh along the point axis, camera-camera Hessian
+psum).  This harness keeps the per-device landmark/observation load
 constant while growing the mesh, and reports step time and efficiency per
 device count.
 
     python scripts/bench_distributed_ba.py [devices=1,2,4,8] [pts_per_dev=640]
-        [kf=12] [iters=10] [cpu=1] [out=WEAK_SCALING.json]
+        [kf=12] [iters=10] [cpu=1] [out=weak_scaling.json]
 
-On this image only virtual CPU meshes are available
-(``--xla_force_host_platform_device_count``) — numbers there validate the
-harness and the collective layout, not real ICI bandwidth; run on a real pod
-slice for the reportable figure.  Prints one JSON line per device count and
+On virtual CPU meshes (``--xla_force_host_platform_device_count``) the
+numbers validate the harness and the collective layout, not interconnect
+bandwidth; run on real devices for a reportable figure.  Prints one JSON line per device count and
 a final summary line; with ``out=`` also writes the full result object.
 """
 
@@ -184,60 +183,19 @@ def main() -> None:
                 "value": row["weak_scaling_efficiency"],
                 "overhead_efficiency": row["overhead_efficiency"],
             }))
-        # ---- ICI projection for a real multi-host v5e slice ----
-        # Model: ring all-reduce of V bytes over n devices moves
-        # 2·V·(n-1)/n per device at BW_eff, plus L launch latency per
-        # collective.  v5e hosts within a pod slice share the 2-D ICI torus
-        # (multi-host != DCN until you leave the slice).  Assumptions
-        # (conservative): BW_eff = 4e10 B/s per device, L = 5 us.
-        # Compute time: the 1-chip TPU solve anchor if available (run
-        # `cpu=0 devices=1` to measure), else the CPU 1-device figure as a
-        # stand-in (slower compute only makes efficiency look BETTER, so
-        # the TPU anchor is the honest one to use).
-        projection = None
         if collectives:
-            BW, L = 4.0e10, 5.0e-6
-            n_coll = sum(1 for c in collectives["hlo_all_reduces"]
-                         if c["where"] == "lm_loop_body")
-            V = collectives["payload_bytes_per_lm_iteration"]
-            t_anchor_ms = None
-            anchor_src = None
-            tpu_anchor = args.get("tpu_anchor_ms")
-            if tpu_anchor:
-                t_anchor_ms = float(tpu_anchor)
-                anchor_src = "measured 1-chip TPU solve (cpu=0 devices=1 run)"
-            elif results:
-                t_anchor_ms = results[0]["step_ms_1dev_same_problem"]
-                anchor_src = "1-device CPU solve stand-in"
-            def eff(n, bw, lat):
-                t_comm = (n_iter + 1) * (
-                    2.0 * V * (n - 1) / n / bw + n_coll * lat)
-                return t_anchor_ms / (t_anchor_ms + t_comm * 1e3)
-
-            rows = {str(n): round(eff(n, BW, L), 4)
-                    for n in (2, 4, 8, 16, 32)}
-            projection = {
-                "model": "ring all-reduce, BW_eff=4e10 B/s, launch=5us",
-                "anchor_solve_ms": t_anchor_ms,
-                "anchor_source": anchor_src,
-                "projected_efficiency_by_devices": rows,
-                "sensitivity_8dev_10x_worse_link": round(
-                    eff(8, BW / 10, L * 10), 4),
-            }
-            print(json.dumps({"collectives": collectives,
-                              "ici_projection": projection}))
+            print(json.dumps({"collectives": collectives}))
 
         out_path = args.get("out")
         if out_path:
             with open(out_path, "w") as fh:
                 json.dump({
                     "collectives_measured": collectives,
-                    "ici_projection": projection,
                     "backend": devs[0].platform,
                     "note": (
                         "virtual CPU mesh (all 'devices' share one physical "
                         "socket) — validates the collective layout and "
-                        "measures partitioning+psum overhead, not real ICI "
+                        "measures partitioning+psum overhead, not real "
                         "bandwidth.  Classic weak scaling (constant step "
                         "time while total work grows with the mesh) is "
                         "physically impossible on shared hardware: total "
@@ -247,10 +205,10 @@ def main() -> None:
                         "overhead_efficiency = t(1 device, same total "
                         "problem)/t(n devices): >= 1.0 everywhere means the "
                         "point-block sharding + psum of the (6K,6K) camera "
-                        "system costs nothing.  On a real pod slice, "
+                        "system costs nothing.  On real devices, "
                         "per-device work is constant by construction and "
                         "the only added cost is the psum'd camera system "
-                        "(37 KB at K=16), so ICI-bound efficiency follows "
+                        "(37 KB at K=16), so link-bound efficiency follows "
                         "overhead_efficiency, not the socket-bound "
                         "weak_scaling_efficiency column."),
                     "n_kf": n_kf, "n_iter": n_iter,

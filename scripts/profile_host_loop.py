@@ -22,8 +22,9 @@ sys.path.insert(0, ROOT)
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", os.path.join(ROOT, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from hso_tpu.utils.jax_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from bench import BOOT_NPZ, bench_camera, bench_scene, trajectory
 from hso_tpu.config import Config

@@ -1,17 +1,20 @@
 """Bisect update_seeds device time: run chained-prefix variants of the sweep
 (each prefix feeds its partial result back into the carry so XLA cannot hoist
 anything) and report the marginal cost of each stage."""
-import time
+import os
 import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+from hso_tpu.utils.jax_cache import enable_compile_cache
+
+enable_compile_cache()
+
 from hso_tpu.cameras import PinholeCamera
 from hso_tpu.math import se3
 from hso_tpu.math.linalg_small import inv2x2

@@ -1,5 +1,6 @@
 """ATE evaluator: exact recovery of a known Sim3 offset, association, CLI."""
 
+import os
 import subprocess
 import sys
 
@@ -80,7 +81,7 @@ def test_tum_files_and_cli(tmp_path):
     out = subprocess.run(
         [sys.executable, "scripts/evaluate_ate.py", str(f_est), str(f_gt),
          "--json"],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )
     assert out.returncode == 0, out.stderr
     import json

@@ -9,7 +9,8 @@ from hso_tpu.io.calib import parse_calib
 from hso_tpu.io.image_reader import ImageReader, _parse_stamp_line
 from hso_tpu.io.trajectory import rotation_to_quaternion
 
-REF_CAMS = "/root/reference/test/cameras"
+REF_CAMS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "data", "cameras")
 
 
 def test_parse_euroc_calib():

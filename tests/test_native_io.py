@@ -1,3 +1,4 @@
+import os
 import subprocess
 
 import cv2
@@ -10,7 +11,10 @@ from hso_tpu.io import native_reader
 @pytest.fixture(scope="module")
 def lib_built():
     if not native_reader.native_available():
-        rc = subprocess.run(["/root/repo/native/build.sh"], capture_output=True)
+        rc = subprocess.run(
+            [os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "native", "build.sh")],
+            capture_output=True)
         if rc.returncode != 0:
             pytest.skip("native build failed: " + rc.stderr.decode()[-200:])
         native_reader._LIB = native_reader._load_lib()
